@@ -1,4 +1,4 @@
-// Native data-loading runtime for the TPU hybrid framework.
+// Native data-loading runtime for the hybrid framework.
 //
 // Role parity with the reference's native IO layer (NetCDF-C/HDF5 + MPI-IO
 // parallel hyperslab readers, mod_io.f90:1905-2282, and the direct-access

@@ -2,8 +2,8 @@
 
 Measures the batched ESN training-accumulation step at 1/2/4/8 (virtual CPU)
 devices with regions sharded over dp — the mechanical validation of the
-multi-chip path (real-chip scaling needs hardware this environment doesn't
-have; BASELINE.md north-star: >=80% efficiency). On a virtual mesh all
+multi-chip path (real multi-card scaling is measured on the cards, by
+`python chip_smoke.py --multichip`). On a virtual mesh all
 "devices" share the same cores, so the expected curve is FLAT wall-time as
 device count grows (work is fixed, parallelism is simulated); what this
 script actually validates is that sharded execution has no hidden
@@ -57,7 +57,7 @@ def main():
             lambda a: jax.device_put(a, region_sharding(mesh)), acc)
         acc = acc._replace(x=jax.device_put(acc.x, state_sharding(mesh)))
         f = jax.jit(lambda a, uu, yy, mm: drive_and_accumulate(
-            sp, a, uu, yy, mm, chunk=chunk, use_pallas=False))
+            sp, a, uu, yy, mm, chunk=chunk))
         out = f(acc, us, ys, ms)
         np.asarray(out.ss_hi[0, 0, :2])      # true sync
         t0 = time.perf_counter()

@@ -1,5 +1,5 @@
 """Perf experiment: dycore ensemble throughput vs ensemble width and matmul
-precision (f32 vs bf16 inputs on the MXU), with a drift check against the
+precision (f32 vs bf16 matmul inputs), with a drift check against the
 f32 path so a faster-but-wrong configuration can't win.
 
 Usage: python scripts/bench_sweep.py [--steps 96] [--chunks 3]
@@ -24,15 +24,9 @@ def main():
     from speedyml.core.config import ModelConfig
     from speedyml.dynamics.core import Dycore
     from speedyml.dynamics.initial import rest_state
-    from speedyml.io.boundary import BoundaryData
-
-    try:
-        orog = BoundaryData("/root/reference/bin").orog
-    except Exception:
-        orog = None
 
     cfg = ModelConfig(dtype="float32")
-    dy = Dycore(cfg, orog=orog)
+    dy = Dycore(cfg)                  # flat aquaplanet surface
     state0 = dy.stepone(rest_state(dy), dy.zero_forcing())
     forcing = dy.zero_forcing()
     gp = cfg.ix * cfg.il * cfg.kx

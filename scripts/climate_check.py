@@ -1,4 +1,4 @@
-"""Climate-sanity validation run (VERDICT item 5): score a >=90-day
+"""Climate-sanity validation run: score a >=90-day
 full-physics simulation (and/or the cached truth trajectory) against the
 coarse climatology bands in speedyml.utils.climate.
 

@@ -1,6 +1,6 @@
-"""Per-year climate table for the decade-scale coupled run (VERDICT r4,
-Next #4: 'aborted: false, per-year drift/climate table (T, SST, precip,
-jets) in BASELINE.md, Nino-3.4 series numerically summarized').
+"""Per-year climate table for the decade-scale coupled run: 'aborted:
+false', per-year drift/climate table (T, SST, precip, jets), Nino-3.4
+series numerically summarized.
 
 Streams the run NetCDF (never materializes the (T,8,48,96) stacks) and
 emits, per 364-day year: lowest-level global T, global precip, NH/SH jet

@@ -1,12 +1,12 @@
 """Diagnose the coupled run's tropical wet bias + jet weakening to a
-mechanism (VERDICT r4, Weak #2/#7, Next #3/#8).
+mechanism.
 
 Round-4 facts: the 1-year coupled run (config 5) reports global precip
 8.16 mm/day vs the [0.5, 8.0] band and NH jet 30.6 m/s, while the SAME
 atmosphere uncoupled (hybrid-only, config 3) passes at 6.70 mm/day with a
 41.5 m/s jet. The only difference between the two runs is the weekly
 slab-ocean SST feedback. This script quantifies, from the recorded runs
-(no TPU needed):
+(no accelerator needed):
 
   1. the fed-back SST anomaly (coupled SST minus the date-matched
      climatological sea boundary): mean/std maps, tropical mean;

@@ -1,11 +1,11 @@
 """Evaluate the synthetic-ENSO coupled run against the imposed forcing.
 
-The coupled-variability demonstration (VERDICT r4, Next #2): the truth
+The coupled-variability demonstration: the truth
 trajectory was forced with a deterministic ENSO-like SST anomaly
 (coupler.anomaly.SyntheticEnso), the ocean reservoir was trained on it, and
 the coupled loop then free-ran with NO imposed forcing. This script measures
 whether the free-running coupled system LEARNED and SUSTAINS the
-variability — the tpu-native analog of the reference's JAMES-2023 coupled
+variability — this framework's analog of the reference's JAMES-2023 coupled
 ENSO result (src/mod_slab_ocean_reservoir.f90:1268-1363, feedback
 cpl_sea.f90:38-44):
 
@@ -132,7 +132,7 @@ def main():
         "subseasonal_std_imposed_K": round(
             highpass_std(nino_imp, 120), 3),
     }
-    # pass criterion = the VERDICT r4 Next-#2 metric: Nino-3.4 SUBSEASONAL
+    # pass criterion: Nino-3.4 SUBSEASONAL
     # std (score_run.py's 30-day-highpass definition) within 2x of the
     # imposed forcing's, computed identically. The total-anomaly ratio is
     # reported alongside: an EXTERNALLY-forced oscillation decays in a

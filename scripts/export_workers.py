@@ -1,4 +1,4 @@
-"""Full-scale reference-schema worker-file export (VERDICT r3 item 8).
+"""Full-scale reference-schema worker-file export.
 
 Exports all 1152 per-region worker files (write_trained_res schema,
 src/mod_reservoir.f90:1703-1738 / mod_io.f90:2938-3036 layout) from the

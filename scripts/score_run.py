@@ -1,5 +1,5 @@
 """Score a hybrid/coupled run NetCDF (ForecastWriter schema) against the
-climate bands + ocean indices (VERDICT r3 items 1 and 3).
+climate bands + ocean indices.
 
 Produces: climate-band pass/fail (speedyml.utils.climate, same bands the
 truth-cache check uses), SST drift, Niño-3.4 index statistics, and physical

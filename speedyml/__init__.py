@@ -1,4 +1,4 @@
-"""speedyml: TPU-native hybrid climate modeling framework.
+"""speedyml: JAX hybrid climate modeling framework (SPEEDY + reservoirs).
 
 Public API (see README.md; full parity map in PARITY.md):
 

@@ -46,7 +46,7 @@ class ModelConfig:
     imont0: int = 1
 
     # numerics
-    dtype: str = "float32"   # "float32" on TPU, "float64" for CPU validation
+    dtype: str = "float32"   # "float32" on the GPU, "float64" for validation
     # grid-space tendency compute dtype: "bfloat16" halves the HBM traffic of
     # the dominant elementwise tendency work (spectral state/transforms stay
     # in `dtype`); opt-in fast path for large-ensemble throughput runs

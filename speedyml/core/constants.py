@@ -1,6 +1,6 @@
 """Physical constants for the dynamical core and physics.
 
-TPU-native re-design of the constants in the reference SPEEDY-ML model
+Re-design of the constants in the reference SPEEDY-ML model
 (reference: src/mod_dyncon0.f90, src/mod_dyncon1.f90).
 """
 

@@ -6,7 +6,7 @@ era companion files, mpires.f90:1676-1710, mod_io.f90:2731-2812) and then
 propagates it through the coupled hybrid loop. This environment has zero
 egress — no observed SST — and the self-generated truth runs with icsea=0,
 so its SST is exactly climatology and a correctly trained ocean reservoir
-predicts ~zero anomaly (VERDICT r4, Missing #1).
+predicts ~zero anomaly.
 
 This module supplies the missing ingredient in-image: a deterministic,
 seeded, ENSO-like SST anomaly field imposed on the truth trajectory's sea

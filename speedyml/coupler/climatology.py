@@ -80,9 +80,8 @@ class Climatology:
     hfseacl: np.ndarray   # annual-mean sea heat flux climatology (0 here)
 
 
-def build_climatology(bindir: str, gcos: np.ndarray,
+def build_climatology(bd: BoundaryData, gcos: np.ndarray,
                       radang: np.ndarray) -> Climatology:
-    bd = BoundaryData(bindir)
     il, ix = bd.orog.shape
     thrsh = 0.1
 

@@ -1,6 +1,6 @@
 """Region decomposition and global<->region pack/unpack.
 
-TPU-first re-design of the reference's domain layer (src/res_domain.f90):
+Re-design of the reference's domain layer (src/res_domain.f90):
 instead of per-rank index bookkeeping + MPI send/recv of per-region vectors
 (mpires.f90:218-804), the global grid stays one (sharded) device array and
 

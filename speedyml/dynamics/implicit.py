@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from ..core.constants import PHYS, DYN
 from ..core.vertical import VerticalGrid
+from ..transforms.spectral import HIGHEST
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,13 +130,16 @@ def implicit_correction(imp: ImplicitCoefs, divdt, tdt, psdt):
     divdt, tdt: (kx, mx, 2, nx) real-pair spectral; psdt: (mx, 2, nx).
     """
     # ye(k) = sum_k1 xd(k,k1) tdt(k1) + tref1(k) * psdt
-    ye = jnp.einsum("kl,lmcn->kmcn", imp.xd, tdt)
+    ye = jnp.einsum("kl,lmcn->kmcn", imp.xd, tdt, precision=HIGHEST)
     ye = ye + imp.tref1[:, None, None, None] * psdt[None]
     yf = divdt + imp.elz[None, :, None, :] * ye
     # divdt(m,n,:) = xj(m,n) @ yf(m,n,:)
-    new_divdt = jnp.einsum("mnkl,lmcn->kmcn", imp.xj_mn, yf)
-    new_psdt = psdt - jnp.einsum("kmcn,k->mcn", new_divdt, imp.dhsx)
-    new_tdt = tdt + jnp.einsum("kl,lmcn->kmcn", imp.xc, new_divdt)
+    new_divdt = jnp.einsum("mnkl,lmcn->kmcn", imp.xj_mn, yf,
+                           precision=HIGHEST)
+    new_psdt = psdt - jnp.einsum("kmcn,k->mcn", new_divdt, imp.dhsx,
+                                 precision=HIGHEST)
+    new_tdt = tdt + jnp.einsum("kl,lmcn->kmcn", imp.xc, new_divdt,
+                               precision=HIGHEST)
     return new_divdt, new_tdt, new_psdt
 
 

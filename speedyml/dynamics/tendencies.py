@@ -75,8 +75,8 @@ def grtend(dy, fdyn: PrognosticFields, fphy: PrognosticFields,
     coriol = dy.coriol
 
     # opt-in bf16 grid-space compute: the elementwise tendency work below is
-    # HBM-bandwidth-bound (~79% of the dry step, BASELINE.md); casting the
-    # grid fields + vertical constants halves that traffic. Spectral state
+    # memory-bandwidth-bound; casting the grid fields + vertical constants
+    # halves that traffic. Spectral state
     # and the transforms stay full precision (tables are f32, so the forward
     # einsums below promote the results back).
     gd = getattr(dy, "grid_dtype", None)
@@ -87,7 +87,7 @@ def grtend(dy, fdyn: PrognosticFields, fphy: PrognosticFields,
             cast, (dhs, dhsr, fsgr, tref3, coriol))
 
     # --- grid converts: ONE batched transform per cos-scaling group
-    # (stacking all fields maximizes the MXU batch; splitting is free) ---
+    # (stacking all fields makes one large matmul batch) ---
     kx = fdyn.vor.shape[0]
     ntr = fdyn.tr.shape[0]
     trf = fdyn.tr.reshape(ntr * kx, *fdyn.tr.shape[2:])

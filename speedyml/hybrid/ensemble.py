@@ -2,15 +2,13 @@
 
 The reference's operating mode is one trajectory (parallelmain.f90:206-273),
 which leaves the chip idle: the single-trajectory 6-h SPEEDY window is 24
-sequential tiny T30 leapfrog steps (~70% of the 14-21 ms hybrid step,
-BASELINE.md), latency-bound. For climate-ensemble workloads the whole step —
-pack, SPEEDY window, forecast pack, ESN advance + readout, scatter — vmaps
-over E members in ONE jitted program:
+sequential tiny T30 leapfrog steps, latency-bound. For climate-ensemble
+workloads the whole step — pack, SPEEDY window, forecast pack, ESN
+advance + readout, scatter — vmaps over E members in ONE jitted program:
 
-  * the window's grid work gains an ensemble batch axis (the dry core at
-    ensemble 128 runs ~1000x the single-trajectory gridpoint rate);
-  * the 3.7 GB wout HBM stream of the readout is read ONCE per step for all
-    members (einsum batches members into the matmul), amortizing the
+  * the window's grid work gains an ensemble batch axis;
+  * the 3.7 GB wout memory stream of the readout is read ONCE per step for
+    all members (einsum batches members into the matmul), amortizing the
     dominant single-trajectory cost E-fold.
 
 Members share the boundary forcing (SST/TISR/surf per date); the reservoir

@@ -1,6 +1,6 @@
 """Grid-state injection/extraction for the hybrid coupler.
 
-TPU-native equivalent of the reference's file/COMMON-block state plumbing
+Equivalent of the reference's file/COMMON-block state plumbing
 (ppo_iogrid.f90:497-577 mode 30 = inject, 579-602 mode 31 = extract): here
 the "internal state vector" is just a pytree of grid arrays and
 inject/extract are pure jittable functions, so the hybrid exchange never

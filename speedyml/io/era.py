@@ -17,7 +17,8 @@ classic` (no netCDF4/HDF5 stack in this image); the variable layout is
 unchanged. Where the reference scatters per-region hyperslabs over MPI-IO
 (one read per rank per region), here whole fields are read into host arrays
 and the per-region slicing happens in the packed-supervector gather
-(domain.decomposition / native gather), which is the TPU-resident analog.
+(domain.decomposition / native gather), which is the device-resident
+analog.
 """
 
 from __future__ import annotations

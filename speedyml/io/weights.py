@@ -5,7 +5,7 @@ Two formats:
 1. **Batched native format** (one NetCDF-3 file): the whole trained hybrid
    model — ELL adjacency, win, wout, standardization stats, hyperparameters —
    in R-leading batched arrays, written/read in one shot. This is the
-   TPU-idiomatic replacement for the reference's 1152 per-worker files.
+   batched replacement for the reference's 1152 per-worker files.
 
 2. **Reference worker layout** (one file per region/level,
    `worker_%04d_level_%d_<trial>.nc` with variables win/wout/rows/cols/vals/

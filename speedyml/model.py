@@ -1,4 +1,4 @@
-"""Full-physics SPEEDY T30L8 atmosphere model on TPU.
+"""Full-physics SPEEDY T30L8 atmosphere model.
 
 Orchestrates the dycore + physics + coupler at the reference's cadences
 (src/at_gcm.f90): per-day fordate + flux zeroing, 96 leapfrog steps (one
@@ -43,14 +43,17 @@ class DailyFluxes(NamedTuple):
 
 
 class Speedy:
-    def __init__(self, config: ModelConfig = ModelConfig(),
-                 bindir: str = "/root/reference/bin"):
+    def __init__(self, config: ModelConfig = ModelConfig(), boundary=None):
+        """boundary: a BoundaryData, a directory holding the reference's
+        fort.20-26 files, or None for the aquaplanet
+        (io.boundary.load_boundary)."""
+        from .io.boundary import load_boundary
+
         self.config = config
+        bd = load_boundary(boundary, config.ix, config.il)
         # dycore first (owns the spectral transform + truncated orography)
-        from .io.boundary import BoundaryData
-        bd_orog = BoundaryData(bindir).orog
-        self.dy = Dycore(config, orog=bd_orog)
-        self.clim = build_climatology(bindir, self.dy.tables.gcos,
+        self.dy = Dycore(config, orog=bd.orog)
+        self.clim = build_climatology(bd, self.dy.tables.gcos,
                                       self.dy.tables.radang)
 
         self.st = make_sigma_tables(self.dy.vg.hsg)

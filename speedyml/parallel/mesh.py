@@ -1,6 +1,6 @@
 """Device-mesh sharding for the batched reservoirs + dycore ensemble.
 
-TPU-native replacement of the reference's MPI layer (src/mpires.f90,
+Replacement of the reference's MPI layer (src/mpires.f90,
 src/res_domain.f90 processor_decomposition): instead of 1152 ranks with a
 hub-and-spoke exchange through rank 0 (mpires.f90:218-804), the region batch
 axis R is SHARDED over the mesh ("dp"), the reservoir node axis over ("tp"),
@@ -41,7 +41,7 @@ def make_mesh(n_devices: Optional[int] = None, tp: int = 1,
 def shard_params(params: EsnParams, mesh: Mesh) -> EsnParams:
     """Place the batched ESN parameters with (dp=regions, tp=nodes)
     shardings. wout's augmented axis is tp-sharded: the readout einsum
-    reduces over it, so XLA inserts a psum over tp (the MXU-parallel
+    reduces over it, so XLA inserts a psum over tp (the model-parallel
     replacement for the reference's per-rank DGEMV)."""
     ns = lambda *spec: NamedSharding(mesh, P(*spec))
     return EsnParams(

@@ -1,12 +1,11 @@
 """Latitude-sharded SPEEDY step: the sharded-grid scale-out path.
 
-TPU-native replacement for the reference's rank-0-serialized SPEEDY
+Replacement for the reference's rank-0-serialized SPEEDY
 (mpires.f90:1548-1660 runs the whole model on one process) and the MPI
-hub-and-spoke (SURVEY 5.8): the grid-space work — the ~79% of the step that
-is HBM-bound elementwise tendency/physics compute (BASELINE.md) — runs
-inside a `shard_map` with every (il, ix) array sharded over a mesh axis in
-LATITUDE, while the spectral state (31 x 2 x 32 per field-level, ~8 kB)
-stays replicated.
+hub-and-spoke (SURVEY 5.8): the grid-space work — the elementwise
+tendency/physics compute — runs inside a `shard_map` with every (il, ix)
+array sharded over a mesh axis in LATITUDE, while the spectral state
+(31 x 2 x 32 per field-level, ~8 kB) stays replicated.
 
 Communication analysis (why this shape, not all-to-all transposes):
   * inverse transforms (spec -> grid) are LOCAL: each shard contracts the
@@ -14,7 +13,7 @@ Communication analysis (why this shape, not all-to-all transposes):
     Legendre operator;
   * forward transforms (grid -> spec) contract the local latitude block and
     `psum` the partial coefficients over the lat axis — the ONLY collective
-    in the step, moving ~n_fields x 8 kB per step over ICI;
+    in the step, moving ~n_fields x 8 kB per step between devices;
   * all grid-space tendency/physics work is pointwise in latitude (products,
     vertical cumsums, column physics), so NO halo exchange exists at all —
     spectral models take horizontal derivatives spectrally.
@@ -35,26 +34,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-import inspect as _inspect
 
-try:
-    from jax import shard_map as _shard_map            # jax >= 0.8
-except ImportError:                                    # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map
+from ..transforms.spectral import HIGHEST, SpectralTransform
 
-# replication/varying-axis checking keyword differs across jax versions; we
-# disable it either way (outputs are replicated via psum, but dynamic table
-# slices by axis_index defeat the static tracker)
-_SM_OFF = next((kw for kw in ("check_vma", "check_rep")
-                if kw in _inspect.signature(_shard_map).parameters), None)
-
-
-def shard_map(f, **kw):
-    if _SM_OFF is not None:
-        kw.setdefault(_SM_OFF, False)
-    return _shard_map(f, **kw)
-
-from ..transforms.spectral import SpectralTransform
+# Every shard_map here passes check_vma=False: outputs are replicated via
+# psum, but the dynamic table slices by axis_index defeat the static
+# varying-axis tracker.
 
 
 class LatLocalTransform:
@@ -105,24 +90,28 @@ class LatLocalTransform:
     # -- core transforms over the local latitude block ---------------------
     def spec_to_fourier(self, spec):
         leg = self._slice(self._T.leg_inv, 2)            # (mx, nx, jl)
-        return jnp.einsum("...mcn,mnj->...jmc", spec, leg)
+        return jnp.einsum("...mcn,mnj->...jmc", spec, leg,
+                          precision=HIGHEST)
 
     def fourier_to_grid(self, fourier, kcos: int = 1):
         flat = fourier.reshape(fourier.shape[:-2] + (self.mx * 2,))
-        grid = jnp.einsum("...jf,fi->...ji", flat, self.dft_inv)
+        grid = jnp.einsum("...jf,fi->...ji", flat, self.dft_inv,
+                          precision=HIGHEST)
         if kcos == 2:
             grid = grid * self.cosgr[:, None]
         return grid
 
     def grid_to_fourier(self, grid):
-        flat = jnp.einsum("...ji,if->...jf", grid, self.dft_fwd)
+        flat = jnp.einsum("...ji,if->...jf", grid, self.dft_fwd,
+                          precision=HIGHEST)
         return flat.reshape(flat.shape[:-1] + (self.mx, 2))
 
     def fourier_to_spec(self, fourier):
         """Partial Legendre contraction over local latitudes + psum over the
         lat mesh axis — the step's single collective."""
         leg = self._slice(self._T.leg_fwd, 2)
-        partial = jnp.einsum("...jmc,mnj->...mcn", fourier, leg)
+        partial = jnp.einsum("...jmc,mnj->...mcn", fourier, leg,
+                             precision=HIGHEST)
         return jax.lax.psum(partial, self.axis)
 
     def spec_to_grid(self, spec, kcos: int = 1):
@@ -214,8 +203,8 @@ class SpatialDycore:
             loc = _localize_dycore(dy, axis, n)
             return loc.step(state, forcing, j1, j2, dt_key)
 
-        return shard_map(body, mesh=self.mesh, in_specs=(P(), P()),
-                         out_specs=P())
+        return jax.shard_map(body, mesh=self.mesh, in_specs=(P(), P()),
+                             out_specs=P(), check_vma=False)
 
     def run_steps_fn(self, nsteps: int, dt_key: str = "delt2"):
         dy, axis, n = self.dy, self.axis, self.n
@@ -229,8 +218,8 @@ class SpatialDycore:
             state, _ = jax.lax.scan(one, state, None, length=nsteps)
             return state
 
-        return shard_map(body, mesh=self.mesh, in_specs=(P(), P()),
-                         out_specs=P())
+        return jax.shard_map(body, mesh=self.mesh, in_specs=(P(), P()),
+                             out_specs=P(), check_vma=False)
 
     # ------------------------------------------------------------------
     def physics_step_fn(self, lradsw: bool = True, j1: int = 1, j2: int = 1,
@@ -273,11 +262,10 @@ class SpatialDycore:
             z = np.zeros((self.dy.config.il, self.dy.config.ix))
             fluxes_example = StepFluxes(*([z] * len(StepFluxes._fields)))
         flux_specs = _lat_spec(fluxes_example, self.axis, self.dy.config.il)
-        return shard_map(
+        return jax.shard_map(
             body, mesh=self.mesh,
             in_specs=(P(), P(), surf_specs, rad_specs),
-            out_specs=(P(), rad_specs, flux_specs),
-            )
+            out_specs=(P(), rad_specs, flux_specs), check_vma=False)
 
     # ------------------------------------------------------------------
     def shard_surface(self, tree):

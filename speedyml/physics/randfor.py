@@ -7,7 +7,7 @@ diabatic heating, added to the temperature tendency. Used by the reference
 for perturbation/predictability experiments (off by default,
 mod_tsteps.f90 nstrdf=0).
 
-TPU shape conventions: fields are (kx, il, ix); the pattern is (2, il, ix);
+Shape conventions: fields are (kx, il, ix); the pattern is (2, il, ix);
 the profiles are (2, kx, il). The pattern build is host-side numpy at init
 (one-off); the per-step profile + application is pure jnp inside the
 physics program.

@@ -1,6 +1,6 @@
 """SPPT: stochastically perturbed parametrization tendencies.
 
-TPU-native re-design of the reference's spectral AR(1) noise module
+Re-design of the reference's spectral AR(1) noise module
 (src/mod_sppt.f90, after Palmer et al. 2009): the AR(1) state is an explicit
 carry (no module globals), randomness comes from a threaded jax.random key
 (deterministic, splittable — SURVEY.md section 5.2), and the per-step update

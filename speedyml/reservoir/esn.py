@@ -1,6 +1,6 @@
 """Batched echo-state-network core.
 
-TPU-first re-design of the reference's per-region reservoir
+Re-design of the reference's per-region reservoir
 (src/mod_reservoir.f90, src/mod_linalg.f90): the 1152 independent
 region/level reservoirs become ONE batched computation with a leading region
 axis R, so every step is a handful of large fused array ops instead of 1152
@@ -14,10 +14,9 @@ the reference's COO + MKL handle (mod_linalg.f90:10-25). Two execution paths:
 - circulant-support fast path (`a_shift` set): when the graph is generated
   with node i -> (i + s_d) mod n for deg shared shifts s_d ("ring with
   random jumps", Rodan & Tino 2012-style), A @ x is deg shifted slices +
-  multiplies — pure contiguous HBM traffic. Measured on the v5e: the
-  40M-element gather of the generic path costs ~487 ms at reference scale
-  (1152 x 5760 x 6); the shift path is bandwidth-bound at a few ms. This is
-  the production default for self-generated reservoirs (the reference's ER
+  multiplies — pure contiguous memory traffic instead of the generic path's
+  40M-element gather at reference scale (1152 x 5760 x 6). This is the
+  production default for self-generated reservoirs (the reference's ER
   topology is random only for convenience — the values, radius scaling, and
   degree are what set the dynamics; mod_linalg.f90:180-218).
 
@@ -63,7 +62,7 @@ class EsnParams(NamedTuple):
     @property
     def n_in(self) -> int:
         # cached host-side: the node_map[-1] fetch is a device->host sync
-        # (expensive on remote-tunnel backends if ever called in a loop).
+        # (a stall if ever called in a loop).
         # Cache entries hold a reference to the array, so an id() can never
         # be reused while its entry is alive (identity-checked below).
         nm = self.node_map
@@ -90,7 +89,7 @@ def spmv_ell(a_idx, a_val, x, a_shift=None):
 
     x: (R, n) -> (R, n). With a_shift (deg,) set (circulant support,
     idx[r,i,d] = (i + s_d) mod n), the gather becomes deg contiguous
-    shifted slices — the TPU fast path.
+    shifted slices — the fast path.
     """
     R, n, deg = a_idx.shape
     if a_shift is not None:
@@ -141,8 +140,8 @@ def readout(params: EsnParams, x, model_vec=None):
         aug = jnp.concatenate([model_vec, xt], axis=-1)
     else:
         aug = xt
-    # wout may be kept in bfloat16 to halve the dominant HBM stream of the
-    # predict step (3.7 GB/step at reference scale) — see cast_wout. Only
+    # wout may be kept in bfloat16 to halve the dominant memory stream of
+    # the predict step (3.7 GB/step at reference scale) — see cast_wout. Only
     # in that case is aug rounded to the storage dtype; accumulation is at
     # least f32, and an f64 state (x64 processes) keeps an f64 readout.
     if params.wout.dtype == jnp.bfloat16:
@@ -155,12 +154,12 @@ def readout(params: EsnParams, x, model_vec=None):
 def cast_wout(params: EsnParams, dtype=jnp.bfloat16) -> EsnParams:
     """Readout weights in reduced-precision storage (f32 accumulation stays).
 
-    At reference scale wout is 3.7 GB f32 and its HBM stream dominates the
-    predict step once the state update is on the circulant fast path;
+    At reference scale wout is 3.7 GB f32 and its memory stream dominates
+    the predict step once the state update is on the circulant fast path;
     bfloat16 storage halves that traffic. Readout error is ~wout's rounding
     (|e| ~ 2^-8 relative per weight, averaging out over the 5896-term dot) —
-    same acceptance rationale as the bf16 grid-compute fast path
-    (BASELINE.md); keep f32 for golden-value comparisons."""
+    same acceptance rationale as the bf16 grid-compute fast path; keep f32
+    for golden-value comparisons."""
     return params._replace(wout=params.wout.astype(dtype))
 
 

@@ -21,7 +21,7 @@ def make_ell_adjacency(rng: np.random.Generator, R: int, n: int, deg: int):
 
 
 def ring_shifts(n: int, deg: int) -> np.ndarray:
-    """Deterministic circulant shifts for the TPU fast-path topology
+    """Deterministic circulant shifts for the fast-path topology
     ("ring with random jumps"): deg distinct shifts in [1, n-1], a pure
     function of (n, deg) ONLY — every region, block, and resumed run with
     the same reservoir geometry shares them (required both to batch the
@@ -77,10 +77,14 @@ def shifts_from_ell(a_idx: np.ndarray):
 
 
 def spectral_radius_ell(idx: np.ndarray, val: np.ndarray,
-                        iters: int = 200, seed: int = 0) -> np.ndarray:
+                        iters: int = 200, seed: int = 0,
+                        shifts=None) -> np.ndarray:
     """Largest |eigenvalue| per batched ELL matrix via power iteration.
 
-    Returns (R,) radii. Vectorized over the batch in numpy.
+    Returns (R,) radii. Vectorized over the batch in numpy. With `shifts`
+    (circulant support, idx[r, i, d] == (i + shifts[d]) % n) the gather is
+    deg contiguous rolls, which at reference scale is what keeps host-side
+    generation small next to the device work of a training block.
     """
     R, n, deg = idx.shape
     rng = np.random.default_rng(seed)
@@ -88,8 +92,17 @@ def spectral_radius_ell(idx: np.ndarray, val: np.ndarray,
     x /= np.linalg.norm(x, axis=1, keepdims=True)
     lam = np.ones(R)
     ridx = np.arange(R)[:, None, None]
+
+    def matvec(x):
+        if shifts is None:
+            return (val * x[ridx, idx]).sum(axis=-1)
+        y = val[:, :, 0] * np.roll(x, -int(shifts[0]), axis=1)
+        for d in range(1, deg):
+            y += val[:, :, d] * np.roll(x, -int(shifts[d]), axis=1)
+        return y
+
     for _ in range(iters):
-        y = (val * x[ridx, idx]).sum(axis=-1)
+        y = matvec(x)
         lam = np.linalg.norm(y, axis=1)
         x = y / np.maximum(lam[:, None], 1e-30)
     return lam
@@ -122,7 +135,7 @@ def generate_esn(seed: int, R: int, n_in: int, n_out: int, n_model: int,
     zero wout (trained later) plus the host copies.
 
     n is rounded to a multiple of n_in: n = round(m/n_in)*n_in
-    (mod_reservoir.f90:169-172). topology: "ring" (circulant support, TPU
+    (mod_reservoir.f90:169-172). topology: "ring" (circulant support, the
     fast path — the default) or "er" (the reference's Erdos-Renyi-style
     random support, generic gather path).
     """
@@ -137,7 +150,7 @@ def generate_esn(seed: int, R: int, n_in: int, n_out: int, n_model: int,
     else:
         idx, val = make_ell_adjacency(rng, R, n, deg)
         shifts = None
-    lam = spectral_radius_ell(idx, val)
+    lam = spectral_radius_ell(idx, val, shifts=shifts)
     if radii is None:
         radii = np.full(R, 0.9)
     val = val * (np.asarray(radii)[:, None, None] / lam[:, None, None])

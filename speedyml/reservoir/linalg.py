@@ -5,7 +5,7 @@ The reference's mod_linalg.f90 wraps LAPACK/MKL/ARPACK; the batched trainer
 are kept for tooling/interop:
   mldivide : solve A^T X = B^T and return X^T (mod_linalg.f90:109-151 dgesv)
   pinv_svd : SVD pseudo-inverse (mod_linalg.f90:27-107 dgesvd)
-Both accept an optional leading batch axis (the TPU-native batched form).
+Both accept an optional leading batch axis (the batched form).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Builds everything the reference computes in `parmtr`/`lgndre`/`gaussl`
 (src/spe_spectral.f90:2-242) plus latitude functions (src/ini_indyns.f90:72-85),
-re-shaped for batched einsum/matmul evaluation on TPU instead of per-latitude
+re-shaped for batched einsum/matmul evaluation instead of per-latitude
 scalar loops.
 
 Conventions (all 0-based):

@@ -1,6 +1,6 @@
 """Offline forecast/climate analysis library.
 
-TPU-framework counterpart of the reference's post-processing scripts
+Counterpart of the reference's post-processing scripts
 (scripts/hybrid_climo.py, scripts/enso_hybrid.py, scripts/total_precip.py,
 scripts/extreme_values.py): the numerical cores — RMS skill, sigma→pressure
 interpolation, monthly climatology, anomaly correlation, Niño-3.4 ENSO index,

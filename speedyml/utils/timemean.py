@@ -1,6 +1,6 @@
 """Time-mean / variance diagnostics with GrADS output.
 
-TPU-native equivalent of the reference's post-processing accumulators
+Equivalent of the reference's post-processing accumulators
 (src/mod_tmean.f90, src/ppo_tminc.f90, src/ppo_tmout.f90): grid-space means
 of the prognostic fields, second moments (variances + covariances), 2-D
 surface diagnostics (including the lapse-rate mean-sea-level pressure

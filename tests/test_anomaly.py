@@ -94,7 +94,7 @@ def test_training_anomaly_std_gate_scale():
 def test_calibrate_gate_merges_training_scale():
     """calibrate_gate(anom_std) = max(open-loop residual, training anomaly
     scale): a skilful model trained on large anomalies keeps a gate wide
-    enough to feed them back (VERDICT r4 Missing #1 regime)."""
+    enough to feed them back."""
     from speedyml.core.config import ReservoirConfig
     from speedyml.hybrid.experiment import transform_and_pack
     from speedyml.reservoir.slab import train_ocean
@@ -124,8 +124,7 @@ def test_calibrate_gate_merges_training_scale():
 
 
 def test_enso_regime_closed_loop_sustains_anomalies():
-    """End-to-end miniature of the coupled-variability regime (VERDICT r4
-    Missing #1): truth SST carries a slow oscillatory anomaly, the slab
+    """End-to-end miniature of the coupled-variability regime: truth SST carries a slow oscillatory anomaly, the slab
     ocean is trained on it with the train-anomaly-recalibrated gate, and
     the closed fastloop (atmosphere reservoir + weekly ocean feedback)
     SUSTAINS the variability instead of collapsing to climatology."""

@@ -147,7 +147,7 @@ def test_ensemble_step_matches_per_member(setup):
 
 def test_composed_full_physics_matches_single_device(setup):
     """Full-physics composed step vs the single-device composition,
-    NUMERICALLY (VERDICT r3 item 7): with the f64 window model the
+    NUMERICALLY: with the f64 window model the
     discrete convection/condensation triggers only flip at f64 rounding
     scale, so the sharded program must track the reference composition to
     f32 output rounding."""

@@ -1,10 +1,11 @@
 """Dry dynamical core tests.
 
-The correctness gates (BASELINE.md): stability and physical sanity of the
+The correctness gates: stability and physical sanity of the
 T30L8 dry core over 100+ steps from a reference-atmosphere rest start, with
-real orography. With no physics, an at-rest state over *flat* terrain is an
-exact steady state up to roundoff; with orography the flow must spin up
-gravity waves that stay bounded under the semi-implicit scheme.
+mountain orography (the continent_boundary fixture). With no physics, an
+at-rest state over *flat* terrain is an exact steady state up to roundoff;
+with orography the flow must spin up gravity waves that stay bounded under
+the semi-implicit scheme.
 """
 
 import numpy as np
@@ -15,9 +16,6 @@ from speedyml.core.config import ModelConfig
 from speedyml.dynamics.core import Dycore
 from speedyml.dynamics.initial import rest_state
 from speedyml.dynamics.implicit import geopotential
-from speedyml.io.boundary import BoundaryData
-
-BIN = "/root/reference/bin"
 
 
 @pytest.fixture(scope="module")
@@ -26,9 +24,8 @@ def dy_flat():
 
 
 @pytest.fixture(scope="module")
-def dy_orog():
-    bd = BoundaryData(BIN)
-    return Dycore(ModelConfig(dtype="float64"), orog=bd.orog)
+def dy_orog(continent_boundary):
+    return Dycore(ModelConfig(dtype="float64"), orog=continent_boundary.orog)
 
 
 def global_stats(dy, state):
@@ -63,7 +60,7 @@ class TestRestState:
 
 class TestDryCore100Steps:
     def test_stability_and_conservation(self, dy_orog):
-        """100 dry leapfrog steps with real orography: bounded, conservative."""
+        """100 dry leapfrog steps over mountains: bounded, conservative."""
         s = rest_state(dy_orog)
         forcing = dy_orog.zero_forcing()
         ps0, t0 = global_stats(dy_orog, s)
@@ -119,11 +116,8 @@ class TestBf16GridCompute:
     full-precision trajectory closely over a day. Precision-critical
     differences (T - tref, dtref) are computed before the downcast."""
 
-    def test_one_day_tracks_f32(self, dy_orog):
-        from speedyml.core.config import ModelConfig
-        from speedyml.io.boundary import BoundaryData
-
-        bd = BoundaryData(BIN)
+    def test_one_day_tracks_f32(self, continent_boundary):
+        bd = continent_boundary
         dy16 = Dycore(ModelConfig(grid_compute="bfloat16"), orog=bd.orog)
         dy32 = Dycore(ModelConfig(), orog=bd.orog)
         tgs = {}
@@ -134,7 +128,7 @@ class TestBf16GridCompute:
             assert np.isfinite(tg).all()
             tgs[tag] = tg
         d = tgs["bf16"] - tgs["f32"]
-        # gravity-wave spin-up from rest over real orography reaches tens of
+        # gravity-wave spin-up from rest over mountains reaches tens of
         # kelvin anomalies; the reduced-precision path must stay within a
         # small fraction of a kelvin of the full-precision trajectory
         assert np.sqrt((d ** 2).mean()) < 0.2

@@ -32,7 +32,7 @@ def test_era_write_read_roundtrip(tmp_path):
 
 def test_era_orientation_detection(tmp_path):
     """Fortran-ordered / permuted files are reoriented, not read transposed
-    (VERDICT r1: _to_tzyx was a no-op)."""
+    (_to_tzyx was once a no-op)."""
     from scipy.io import netcdf_file
     from speedyml.io.era import _to_tzyx
 

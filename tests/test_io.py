@@ -143,8 +143,8 @@ def test_prediction_checkpoint_roundtrip(tmp_path):
 def test_ncstream_o1_append_roundtrip(tmp_path):
     """The O(1) record appender (io.ncstream) produces files scipy reads
     back exactly, keeps records on crash (no close), and its header
-    patching survives an empty-file create (VERDICT r4 Next #4: 10-year
-    runs cannot pay scipy's O(T^2) record path)."""
+    patching survives an empty-file create (10-year runs
+    cannot pay scipy's O(T^2) record path)."""
     from scipy.io import netcdf_file
 
     from speedyml.io.output import ForecastWriter, read_forecast

@@ -2,8 +2,6 @@
 (native/speedy_io.cpp; reference role: mod_io.f90 parallel readers +
 ini_inbcon.f90:463-495 load_boundary_file)."""
 
-import os
-
 import numpy as np
 import pytest
 
@@ -11,8 +9,12 @@ from speedyml.io.native_loader import (GvStream, get_lib, mem_gather,
                                        read_records_native)
 
 
-pytestmark = pytest.mark.skipif(get_lib() is None,
-                                reason="native toolchain unavailable")
+@pytest.fixture(autouse=True)
+def native_lib():
+    """Build (or load) the library inside the test, never at import: the
+    xdist workers must all collect the same tests."""
+    if get_lib() is None:
+        pytest.skip("native toolchain unavailable")
 
 
 def test_read_records_matches_numpy(tmp_path):
@@ -30,16 +32,19 @@ def test_read_records_matches_numpy(tmp_path):
     np.testing.assert_array_equal(native, ref)
 
 
-def test_boundary_reader_uses_native():
-    """The real fort.20 decodes identically through both paths."""
-    path = "/root/reference/bin/fort.20"
-    if not os.path.exists(path):
-        pytest.skip("reference boundary files absent")
+def test_boundary_reader_uses_native(tmp_path, continent_boundary):
+    """A fort.20 written from the test continent decodes identically through
+    both paths."""
+    bd = continent_boundary
+    recs = np.stack([bd.orog, bd.fmask, bd.alb0, bd.veg_low, bd.veg_high])
+    path = str(tmp_path / "fort.20")
+    recs[:, ::-1, :].astype("<f4").tofile(path)   # stored north -> south
     native = read_records_native(path, 96, 48)
     raw = np.fromfile(path, dtype="<f4").reshape(-1, 48, 96)[:, ::-1, :]
     ref = raw.astype(np.float64)
     ref[ref <= -999] = 0.0
     np.testing.assert_array_equal(native, ref)
+    np.testing.assert_array_equal(native, recs.astype(np.float32))
 
 
 def test_stream_gather_matches_numpy(tmp_path):

@@ -12,12 +12,9 @@ import pytest
 from speedyml.core.config import ModelConfig
 from speedyml.model import Speedy
 
-BIN = "/root/reference/bin"
-
-
 @pytest.fixture(scope="module")
-def model():
-    m = Speedy(ModelConfig(dtype="float64"), bindir=BIN)
+def model(continent_boundary):
+    m = Speedy(ModelConfig(dtype="float64"), boundary=continent_boundary)
     m.initialize(year=1981, month=1)
     return m
 
@@ -34,7 +31,7 @@ class TestClimatology:
         assert c.sst12.min() >= 100.0 and c.sst12.max() < 320.0
         assert c.stl12.min() >= 150.0 and c.stl12.max() < 350.0
         assert (c.sice12 >= 0).all() and (c.sice12 <= 1).all()
-        # Himalaya/Antarctica present in orography
+        # the test continent's 5 km mountain survives preprocessing
         assert c.orog.max() > 4000.0
 
     def test_coupler_init(self, model):

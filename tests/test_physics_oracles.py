@@ -2,7 +2,7 @@
 
 Each test pins a conservation identity or closed-form value that a sign,
 indexing, or unit error in a single scheme would break — the quantitative
-complement to tests/test_physics.py's stability checks (VERDICT r1 item 5):
+complement to tests/test_physics.py's stability checks:
 
   * qsat vs the analytic formula + literature anchors (phy_shtorh.f90:36-56)
   * convection: column moist-static-energy + water closure (phy_convmf.f90)
@@ -263,7 +263,7 @@ class TestGlobalWaterBudget:
         from speedyml.core.config import ModelConfig
         from speedyml.model import Speedy
 
-        m = Speedy(ModelConfig(dtype="float64"), bindir="/root/reference/bin")
+        m = Speedy(ModelConfig(dtype="float64"))
         m.initialize(year=1981, month=1)
         m.run_days(2)          # leave the rest state
         return m

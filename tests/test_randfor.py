@@ -8,13 +8,10 @@ from speedyml.core.config import ModelConfig
 from speedyml.model import Speedy
 from speedyml.physics.randfor import make_randfh, tt_rdf, xs_rdf
 
-BIN = "/root/reference/bin"
-
 
 @pytest.fixture(scope="module")
 def model():
-    m = Speedy(ModelConfig(dtype="float64", rdf_on=True, rdf_index=7),
-               bindir=BIN)
+    m = Speedy(ModelConfig(dtype="float64", rdf_on=True, rdf_index=7))
     m.initialize(year=1981, month=1)
     return m
 

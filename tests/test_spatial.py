@@ -14,10 +14,7 @@ from jax.sharding import Mesh
 from speedyml.core.config import ModelConfig
 from speedyml.dynamics.core import Dycore
 from speedyml.dynamics.initial import rest_state
-from speedyml.io.boundary import BoundaryData
 from speedyml.parallel.spatial import SpatialDycore
-
-BIN = "/root/reference/bin"
 
 
 @pytest.fixture(scope="module")
@@ -27,9 +24,8 @@ def mesh():
 
 
 @pytest.fixture(scope="module")
-def dycore():
-    orog = BoundaryData(BIN).orog
-    return Dycore(ModelConfig(dtype="float64"), orog=orog)
+def dycore(continent_boundary):
+    return Dycore(ModelConfig(dtype="float64"), orog=continent_boundary.orog)
 
 
 def _perturbed_state(dy, seed=0):
@@ -83,12 +79,12 @@ def test_dry_multi_step_equivalence(mesh, dycore):
                                    err_msg=name)
 
 
-def test_physics_step_equivalence(mesh):
+def test_physics_step_equivalence(mesh, continent_boundary):
     """Full-physics step: surf/rad sharded over latitude, fluxes compared
     shard-vs-replicated."""
     from speedyml.model import Speedy
 
-    sp = Speedy(ModelConfig(dtype="float64"), bindir=BIN)
+    sp = Speedy(ModelConfig(dtype="float64"), boundary=continent_boundary)
     sp.initialize(year=1981, month=1)
     sp.run_days(1)                        # develop weather + rad carry
     dy = sp.dy

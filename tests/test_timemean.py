@@ -14,12 +14,10 @@ from speedyml.utils.timemean import (FLUX2D_NAMES, MEAN2D_NAMES, MEAN3D_NAMES,
                                      VAR3D_NAMES, finalize, init_timemean,
                                      tm_update, tm_update_fluxes)
 
-BIN = "/root/reference/bin"
-
 
 @pytest.fixture(scope="module")
 def model():
-    m = Speedy(ModelConfig(dtype="float64", time_means_on=True), bindir=BIN)
+    m = Speedy(ModelConfig(dtype="float64", time_means_on=True))
     m.initialize(year=1981, month=1)
     return m
 
